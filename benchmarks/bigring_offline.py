@@ -1,18 +1,17 @@
-"""Offline golden parity at logn 27/28 (XLA engine vs native oracle).
+"""Offline golden parity at logn 27/28 (butterfly engine vs native oracle).
 
 The reference's merge dispatch tops out at 2^28 (ntt.cuh:677-698).
 The suite tests full-size parity to 2^26 (tests/test_bigring.py);
-27/28 are too heavy for every run on this 1-core box (~5 min XLA
-compile+run each plus the oracle), so this script runs them once per
-round and the numbers land in RESULTS_r2.md.  Forces CPU (the golden
-comparison needs no chip)."""
+27/28 are too heavy for every run (minutes of CPU compile and run each
+plus the oracle), so this script runs them on demand.  Forces the CPU:
+the golden comparison needs no GPU."""
 import os, sys
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), '..'))
 import time, numpy as np
 import jax
 jax.config.update('jax_platforms', 'cpu')
-from gpuntt_tpu import NTTParameters, ReductionPolynomial, _native
-from gpuntt_tpu.ops.merge_ntt import MergePlan, from_lanes, merge_ntt_lanes, to_lanes
+from gpuntt import NTTParameters, ReductionPolynomial, _native
+from gpuntt.ops.merge_ntt import MergePlan, from_lanes, merge_ntt_lanes, to_lanes
 
 for logn, poly in [(27, ReductionPolynomial.X_N_plus),
                    (28, ReductionPolynomial.X_N_minus)]:

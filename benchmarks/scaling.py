@@ -1,15 +1,15 @@
-"""Multi-chip scaling-efficiency harness for the distributed 4-step NTT.
+"""Multi-device scaling-efficiency harness for the distributed 4-step NTT.
 
 No reference counterpart (GPU-NTT is single-device).  Measures the
-BASELINE.md north-star metric: throughput of the sharded 4-step
-transform (column NTTs local -> all_to_all transpose over ICI -> row
+throughput of the sharded 4-step
+transform (column NTTs local -> all_to_all transpose -> row
 NTTs local) as the 'sp' axis widens, reported as scaling efficiency
-vs the 1-chip run:
+vs the 1-device run (median of warm calls, utils.timing.time_calls):
 
     eff(sp) = throughput(sp) / (sp * throughput(1))
 
-On a real TPU slice this measures ICI all_to_all overlap; on the
-virtual CPU mesh (the only thing available in CI) it validates the
+On several GPUs of one host this measures the all_to_all over NVLink
+and its overlap with compute; on the virtual CPU mesh it validates the
 harness and the sharded program, not the interconnect — the report
 labels which one it ran on.
 
@@ -43,12 +43,12 @@ def main():
             pass
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from gpuntt_tpu import NTTParameters4Step, ReductionPolynomial
-    from gpuntt_tpu.ops.merge_ntt import to_lanes
-    from gpuntt_tpu.parallel.fourstep_dist import (DistFourStepPlan,
+    from gpuntt import NTTParameters4Step, ReductionPolynomial
+    from gpuntt.ops.merge_ntt import to_lanes
+    from gpuntt.parallel.fourstep_dist import (DistFourStepPlan,
                                                    dist_fourstep_ntt)
-    from gpuntt_tpu.parallel.mesh import make_mesh
-    from gpuntt_tpu.utils.timing import time_marginal
+    from gpuntt.parallel.mesh import make_mesh
+    from gpuntt.utils.timing import time_calls
 
     n_dev = len(jax.devices())
     platform = jax.devices()[0].platform
@@ -69,17 +69,8 @@ def main():
             lambda v: jax.device_put(v, sh),
             to_lanes(x.reshape(args.batch, p.n1, p.n2), True),
         )
-        def step(v):
-            # forward maps (B, n1, n2)[n2@sp] -> (B, n2, n1)[n1@sp];
-            # relabel axes (free) and re-constrain the sharding so the
-            # chained timing applies the same program each iteration
-            out = dist_fourstep_ntt(v, dplan, mesh)
-            return jax.tree_util.tree_map(
-                lambda a: jax.lax.with_sharding_constraint(
-                    a.reshape(args.batch, p.n1, p.n2), sh),
-                out)
-
-        dt = time_marginal(step, lanes)
+        fwd = jax.jit(lambda v, d: dist_fourstep_ntt(v, d, mesh))
+        dt = float(np.median(time_calls(fwd, lanes, dplan)))
         tp = args.batch / dt
         if base_tp is None:
             base_tp = tp
@@ -92,7 +83,7 @@ def main():
         print(json.dumps(rec), flush=True)
         sp *= 2
 
-    note = ("ICI all_to_all measured on real chips" if platform == "tpu"
+    note = ("all_to_all measured across GPUs" if platform == "gpu"
             and n_dev > 1 else
             "virtual mesh: validates the sharded program, not the interconnect")
     print(json.dumps({"note": note}))

@@ -3,7 +3,7 @@
 intt_first_transpose pre-permute -> 4-step inverse core -> transpose,
 bit-exact vs NTT_4STEP_CPU::intt (test_4step_intt.cu:83-88, :151-179).
 
-Usage: python example_4step_intt.py [RING_SIZE_IN_LOG2] [BATCH_SIZE] [--platform=cpu|tpu]
+Usage: python example_4step_intt.py [RING_SIZE_IN_LOG2] [BATCH_SIZE] [--platform=cpu|gpu]
 """
 
 import os
@@ -20,9 +20,9 @@ import numpy as np
 
 import jax
 
-from gpuntt_tpu import NTT4StepCPU, NTTParameters4Step, ReductionPolynomial, check_result
-from gpuntt_tpu.ops.fourstep import fourstep_intt_full, FourStepPlan
-from gpuntt_tpu.ops.merge_ntt import from_lanes, to_lanes
+from gpuntt import NTT4StepCPU, NTTParameters4Step, ReductionPolynomial, check_result
+from gpuntt.ops.fourstep import fourstep_intt_full, FourStepPlan
+from gpuntt.ops.merge_ntt import from_lanes, to_lanes
 
 
 def main():
@@ -39,11 +39,8 @@ def main():
 
     # fourstep_intt_full bundles the intt_first_transpose input permute,
     # the inverse core with fused n^-1, and the final transpose.
-    # logn 24 runs eagerly so the MXU route stages each pallas_call as
-    # its own small program (ops/fourstep._mxu_route)
-    fn = (jax.jit(lambda v: fourstep_intt_full(v, plan)) if logn <= 23
-          else (lambda v: fourstep_intt_full(v, plan)))
-    got = from_lanes(fn(to_lanes(x, plan.is64)), plan.is64)
+    got = from_lanes(jax.jit(fourstep_intt_full)(to_lanes(x, plan.is64), plan),
+                     plan.is64)
     exp = np.stack([gen.intt(x[i]) for i in range(batch)])
     ok = check_result(got, exp)
 

@@ -5,7 +5,7 @@ transpose -> 4-step core -> transpose, bit-exact vs NTT_4STEP_CPU::ntt
 convention: the first/last transposes are the caller's job
 (ntt_4step.cuh:68-74), shown here explicitly with transpose_lanes.
 
-Usage: python example_4step_ntt.py [RING_SIZE_IN_LOG2] [BATCH_SIZE] [--platform=cpu|tpu]
+Usage: python example_4step_ntt.py [RING_SIZE_IN_LOG2] [BATCH_SIZE] [--platform=cpu|gpu]
 """
 
 import os
@@ -22,9 +22,9 @@ import numpy as np
 
 import jax
 
-from gpuntt_tpu import NTT4StepCPU, NTTParameters4Step, ReductionPolynomial, check_result
-from gpuntt_tpu.ops.fourstep import FourStepPlan, fourstep_ntt_lanes, transpose_lanes
-from gpuntt_tpu.ops.merge_ntt import from_lanes, to_lanes
+from gpuntt import NTT4StepCPU, NTTParameters4Step, ReductionPolynomial, check_result
+from gpuntt.ops.fourstep import FourStepPlan, fourstep_ntt_lanes, transpose_lanes
+from gpuntt.ops.merge_ntt import from_lanes, to_lanes
 
 
 def main():
@@ -44,10 +44,7 @@ def main():
         v = fourstep_ntt_lanes(v, plan)            # GPU_4STEP_NTT core
         return transpose_lanes(v, plan.n1, plan.n2)  # caller-side step 4
 
-    if logn <= 23:
-        pipeline = jax.jit(pipeline)
-    # logn 24 runs EAGERLY: the MXU route then stages each pallas_call
-    # as its own small program (see ops/fourstep._mxu_route)
+    pipeline = jax.jit(pipeline)
 
     got = from_lanes(pipeline(to_lanes(x, plan.is64)), plan.is64)
     exp = np.stack([gen.ntt(x[i]) for i in range(batch)])

@@ -3,7 +3,7 @@
 Round-trip property of the 4-step golden model: NTT -> pointwise mult
 -> INTT equals schoolbook mod X^N - 1 (test_cpu_4step_ntt.cu:64-78).
 
-Usage: python example_cpu_4step_ntt.py [RING_SIZE_IN_LOG2] [BATCH_SIZE] [--platform=cpu|tpu]
+Usage: python example_cpu_4step_ntt.py [RING_SIZE_IN_LOG2] [BATCH_SIZE] [--platform=cpu|gpu]
 """
 
 import os
@@ -18,7 +18,7 @@ _platform.apply()
 
 import numpy as np
 
-from gpuntt_tpu import (
+from gpuntt import (
     NTT4StepCPU,
     NTTParameters4Step,
     ReductionPolynomial,

@@ -4,7 +4,7 @@ Validates the golden model itself: NTT -> pointwise mult -> INTT equals
 schoolbook polynomial multiplication mod X^N - 1
 (test_cpu_merge_ntt.cu:69-101).
 
-Usage: python example_cpu_merge_ntt.py [RING_SIZE_IN_LOG2] [BATCH_SIZE] [--platform=cpu|tpu]
+Usage: python example_cpu_merge_ntt.py [RING_SIZE_IN_LOG2] [BATCH_SIZE] [--platform=cpu|gpu]
 """
 
 import os
@@ -19,7 +19,7 @@ _platform.apply()
 
 import numpy as np
 
-from gpuntt_tpu import (
+from gpuntt import (
     NTTCPU,
     NTTParameters,
     ReductionPolynomial,

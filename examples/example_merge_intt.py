@@ -5,7 +5,7 @@ Three sections, mirroring test_merge_intt.cu:
   2. signed-output INTT via centered reduction (:205-370)
   3. PerCoefficient layout check (:475-506)
 
-Usage: python example_merge_intt.py [RING_SIZE_IN_LOG2] [BATCH_SIZE] [--platform=cpu|tpu]
+Usage: python example_merge_intt.py [RING_SIZE_IN_LOG2] [BATCH_SIZE] [--platform=cpu|gpu]
 """
 
 import os
@@ -20,9 +20,9 @@ _platform.apply()
 
 import numpy as np
 
-from gpuntt_tpu import NTTCPU, NTTLayout, NTTParameters, ReductionPolynomial, check_result
-from gpuntt_tpu.ops.dispatch import intt
-from gpuntt_tpu.ops.merge_ntt import MergePlan
+from gpuntt import NTTCPU, NTTLayout, NTTParameters, ReductionPolynomial, check_result
+from gpuntt.ops.dispatch import intt
+from gpuntt.ops.merge_ntt import MergePlan
 
 
 def main():

@@ -6,9 +6,9 @@ Three sections, mirroring test_merge_ntt.cu:
   3. PerCoefficient layout == transpose . PerPolynomial . transpose
      (:343-474)
 
-Runs on whatever device JAX sees (TPU if available, CPU otherwise).
+Runs on whatever device JAX sees (the GPU if available, CPU otherwise).
 
-Usage: python example_merge_ntt.py [RING_SIZE_IN_LOG2] [BATCH_SIZE] [--platform=cpu|tpu]
+Usage: python example_merge_ntt.py [RING_SIZE_IN_LOG2] [BATCH_SIZE] [--platform=cpu|gpu]
 """
 
 import os
@@ -23,9 +23,9 @@ _platform.apply()
 
 import numpy as np
 
-from gpuntt_tpu import NTTCPU, NTTLayout, NTTParameters, ReductionPolynomial, check_result
-from gpuntt_tpu.ops.dispatch import ntt
-from gpuntt_tpu.ops.merge_ntt import MergePlan
+from gpuntt import NTTCPU, NTTLayout, NTTParameters, ReductionPolynomial, check_result
+from gpuntt.ops.dispatch import ntt
+from gpuntt.ops.merge_ntt import MergePlan
 
 
 def main():

@@ -4,8 +4,8 @@ The reference's RNS overloads exist but its examples only exercise
 mod_count = 1 (test_merge_ntt.cu:143-144); this script demonstrates the
 real thing: a batch cycling through three 59-bit NTT primes, forward
 and inverse, plus an explicit GPU_NTT_Modulus_Ordered-style schedule.
-On TPU the whole schedule runs as ONE MXU kernel with scalar-prefetch
-table gathering (ops/pallas_mxu_rns.py).
+The whole schedule runs as one jitted program over stacked per-modulus
+tables (ops/rns.py).
 
 Usage: python example_rns_ntt.py [RING_SIZE_IN_LOG2] [BATCH]
 Prints "All Correct." on success (check_result, common.cu:24-42).
@@ -23,11 +23,11 @@ _platform.apply()
 
 import numpy as np
 
-from gpuntt_tpu import (Modulus64, find_ntt_primes, ntt_root_pair, NTTFactors, NTTParameters,
+from gpuntt import (Modulus64, find_ntt_primes, ntt_root_pair, NTTFactors, NTTParameters,
                         ReductionPolynomial, check_result, intt_rns,
                         ntt_modulus_ordered, intt_modulus_ordered, ntt_rns)
-from gpuntt_tpu.ops.merge_ntt import from_lanes, to_lanes
-from gpuntt_tpu.ops.rns import RNSMergePlan, rns_ntt_lanes
+from gpuntt.ops.merge_ntt import from_lanes, to_lanes
+from gpuntt.ops.rns import RNSMergePlan, rns_ntt_lanes
 
 
 def rns_members(logn, count):

@@ -5,8 +5,7 @@ only, ntt.cu:2560-3059).
 
 A polynomial over Z_Q (Q = product of a prime ladder) is held as
 residue rows; one RNSPolynomialMultiplier call computes the cyclic
-convolution residue-wise — on TPU the forward/inverse transforms run
-as single MXU RNS kernels — and crt_reconstruct lifts the result back
+convolution residue-wise — and crt_reconstruct lifts the result back
 to Z_Q, where it is checked against an exact big-integer schoolbook
 product.
 
@@ -26,10 +25,10 @@ _platform.apply()
 
 import numpy as np
 
-from gpuntt_tpu import (Modulus64, NTTFactors, NTTParameters,
+from gpuntt import (Modulus64, NTTFactors, NTTParameters,
                         ReductionPolynomial, crt_reconstruct,
                         find_ntt_primes, ntt_root_pair)
-from gpuntt_tpu.models.polymul import RNSPolynomialMultiplier
+from gpuntt.models.polymul import RNSPolynomialMultiplier
 
 
 def rns_members(logn, count):

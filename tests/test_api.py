@@ -11,7 +11,7 @@
 import numpy as np
 import pytest
 
-from gpuntt_tpu import (
+from gpuntt import (
     NTTCPU,
     NTTFactors,
     NTTLayout,
@@ -20,8 +20,8 @@ from gpuntt_tpu import (
     Modulus32,
     ReductionPolynomial,
 )
-from gpuntt_tpu.arith import host
-from gpuntt_tpu.ops.dispatch import (
+from gpuntt.arith import host
+from gpuntt.ops.dispatch import (
     intt,
     intt_modulus_ordered,
     intt_poly_ordered,
@@ -31,8 +31,8 @@ from gpuntt_tpu.ops.dispatch import (
     ntt_poly_ordered,
     ntt_rns,
 )
-from gpuntt_tpu.ops.merge_ntt import MergePlan
-from gpuntt_tpu.ops.rns import RNSMergePlan
+from gpuntt.ops.merge_ntt import MergePlan
+from gpuntt.ops.rns import RNSMergePlan
 
 
 @pytest.mark.parametrize("dtype", [np.uint32, np.uint64])
@@ -194,7 +194,7 @@ def test_polymul_matches_schoolbook(dtype, poly, rng):
     """Fused device polymul == schoolbook mod (q, X^N -+ 1) — the
     reference example flow (test_cpu_merge_ntt.cu:70-77) as one jitted
     computation, for both reduction polynomials and widths."""
-    from gpuntt_tpu import polymul, schoolbook_poly_multiplication
+    from gpuntt import polymul, schoolbook_poly_multiplication
 
     p = NTTParameters(9, poly, dtype=dtype)
     plan = MergePlan.from_params(p)
@@ -213,7 +213,7 @@ def test_polymul_matches_schoolbook(dtype, poly, rng):
 @pytest.mark.parametrize("dtype", [np.uint32, np.uint64])
 def test_pointwise_mult_matches_host(dtype, rng):
     """Device pointwise Barrett product == NTTCPU.mult (ntt_cpu.cu:67-79)."""
-    from gpuntt_tpu import pointwise_mult
+    from gpuntt import pointwise_mult
 
     p = NTTParameters(8, ReductionPolynomial.X_N_minus, dtype=dtype)
     plan = MergePlan.from_params(p)
@@ -225,3 +225,64 @@ def test_pointwise_mult_matches_host(dtype, rng):
     got = pointwise_mult(a, b, plan)
     exp = np.stack([gen.mult(a[i], b[i]) for i in range(3)])
     np.testing.assert_array_equal(got, exp)
+
+
+@pytest.mark.parametrize("logn", [12, 14, 16, 17])
+def test_rns_engine_at_former_kernel_sizes(logn, rng):
+    """ntt_rns / intt_rns over a 3-prime u64 ladder at the sizes a
+    stacked-table device kernel used to own: each row bit-exact vs its
+    member's golden model, and an exact round trip."""
+    from gpuntt.arith.host import find_ntt_primes, ntt_root_pair
+
+    members = []
+    for q in find_ntt_primes(59, logn, 3):
+        om, psi = ntt_root_pair(q, logn)
+        members.append(NTTParameters(
+            logn, ReductionPolynomial.X_N_plus, dtype=np.uint64,
+            factors=NTTFactors(Modulus64(q), om, psi)))
+    plan = RNSMergePlan.from_params(members)
+    mod_idx = np.arange(4) % 3
+    x = np.stack([rng.integers(0, members[m].modulus.value, 1 << logn,
+                               dtype=np.uint64) for m in mod_idx])
+    got = ntt_rns(x, plan)
+    for r, m in enumerate(mod_idx):
+        np.testing.assert_array_equal(got[r], NTTCPU(members[m]).ntt(x[r]))
+    np.testing.assert_array_equal(intt_rns(got, plan), x)
+
+
+@pytest.mark.parametrize("fn", ["ntt_lanes", "intt_lanes", "polymul_lanes"])
+def test_lane_api_rejects_use_pallas(fn):
+    """The device-specific kernel selector is gone from the public signatures:
+    no argument can ask for a device-specific kernel any more."""
+    from gpuntt.ops import dispatch
+    from gpuntt.ops.merge_ntt import to_lanes
+
+    p = NTTParameters(6, ReductionPolynomial.X_N_plus, dtype=np.uint64)
+    plan = MergePlan.from_params(p)
+    x = to_lanes(np.zeros((1, p.n), dtype=np.uint64), True)
+    args = (x, x, plan) if fn == "polymul_lanes" else (x, plan)
+    with pytest.raises(TypeError, match="use_pallas"):
+        getattr(dispatch, fn)(*args, use_pallas=True)
+
+
+def test_engine_choice_and_non_root_factors(rng):
+    """select_engine is the one engine decision; every plan, including
+    one built from caller factors that are NOT roots of unity, gets the
+    butterfly engine, which reproduces the reference's
+    garbage-in/garbage-out output for such tables exactly."""
+    from gpuntt.ops.dispatch import select_engine
+
+    for dtype in (np.uint32, np.uint64):
+        p = NTTParameters(9, ReductionPolynomial.X_N_plus, dtype=dtype)
+        assert select_engine(MergePlan.from_params(p)) == "butterfly"
+    q = NTTParameters(9, ReductionPolynomial.X_N_plus,
+                      dtype=np.uint64).modulus.value
+    bad = NTTParameters(9, ReductionPolynomial.X_N_plus, dtype=np.uint64,
+                        factors=NTTFactors(Modulus64(q), 5, 7))
+    assert pow(bad.root_of_unity, 2 * bad.n, q) != 1
+    plan = MergePlan.from_params(bad)
+    assert select_engine(plan) == "butterfly"
+    x = rng.integers(0, q, size=(2, bad.n), dtype=np.uint64)
+    gen = NTTCPU(bad)
+    np.testing.assert_array_equal(ntt(x, plan),
+                                  np.stack([gen.ntt(r) for r in x]))

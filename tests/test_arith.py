@@ -8,8 +8,8 @@ import random
 import numpy as np
 import pytest
 
-from gpuntt_tpu import Modulus32, Modulus64, OPERATOR
-from gpuntt_tpu.arith.host import barrett_mult
+from gpuntt import Modulus32, Modulus64, OPERATOR
+from gpuntt.arith.host import barrett_mult
 
 
 def test_modulus_constants_u32():
@@ -73,9 +73,9 @@ def test_wide_and_forced_reductions():
     import jax.numpy as jnp
     import numpy as np
 
-    from gpuntt_tpu.arith.modulus import Modulus32, Modulus64
-    from gpuntt_tpu.ops import barrett as bo
-    from gpuntt_tpu.ops.limb import U128, U64, u64_to_numpy
+    from gpuntt.arith.modulus import Modulus32, Modulus64
+    from gpuntt.ops import barrett as bo
+    from gpuntt.ops.limb import U128, U64, u64_to_numpy
 
     rnd = random.Random(2)
 

@@ -2,12 +2,9 @@
 reference's upper range.
 
 The reference dispatches merge NTTs to 2^28 with dedicated multi-launch
-plans above 2^23 (ntt.cuh:665-698, ntt.cu:2163-2224).  On the TPU side
-that range is served by (a) the XLA butterfly engine (any q), checked
-here bit-exact against the native C++ oracle on CPU, and (b) the staged
-multi-program MXU route (dispatch._staged_route, q < 2^62), whose
-machinery is exercised at reduced splits in test_mxu_large.py and
-compiled on-chip by the verify-skill drives.
+plans above 2^23 (ntt.cuh:665-698, ntt.cu:2163-2224).  Here that range
+is served by the butterfly engine (any q), checked bit-exact against the
+native C++ oracle on CPU; chip_smoke.py runs 2^24 on the GPU.
 
 These tests are the slowest in the suite (a 2^24 transform per case);
 they exist because an untested "structural" claim is not coverage.
@@ -18,9 +15,9 @@ import pytest
 
 import jax
 
-from gpuntt_tpu import NTTCPU, NTTParameters, ReductionPolynomial
-from gpuntt_tpu import _native
-from gpuntt_tpu.ops.merge_ntt import (MergePlan, from_lanes, merge_intt_lanes,
+from gpuntt import NTTCPU, NTTParameters, ReductionPolynomial
+from gpuntt import _native
+from gpuntt.ops.merge_ntt import (MergePlan, from_lanes, merge_intt_lanes,
                                       merge_ntt_lanes, to_lanes)
 
 
@@ -85,8 +82,8 @@ def test_fourstep_logn24_parity(rng):
     """4-step at logn 24 (n1=256, n2=65536 — the top of the reference's
     MATRIX_DIMENSIONS table, nttparameters.cu:305-354), fwd + inv vs
     the golden model."""
-    from gpuntt_tpu import NTT4StepCPU, NTTParameters4Step
-    from gpuntt_tpu.ops.fourstep import (FourStepPlan, fourstep_intt_full,
+    from gpuntt import NTT4StepCPU, NTTParameters4Step
+    from gpuntt.ops.fourstep import (FourStepPlan, fourstep_intt_full,
                                          fourstep_ntt_full)
 
     p = NTTParameters4Step(24, ReductionPolynomial.X_N_minus,

@@ -1,7 +1,7 @@
 """Distributed 4-step NTT on a virtual 8-device CPU mesh.
 
 No reference counterpart (single-GPU library); correctness target is
-bit-exactness vs the single-chip engines and the golden model.
+bit-exactness vs the single-device engines and the golden model.
 """
 
 import numpy as np
@@ -10,17 +10,17 @@ import pytest
 import jax
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from gpuntt_tpu import NTT4StepCPU, NTTParameters4Step, ReductionPolynomial
-from gpuntt_tpu.ops.merge_ntt import from_lanes, to_lanes
-from gpuntt_tpu.parallel.fourstep_dist import (
+from gpuntt import NTT4StepCPU, NTTParameters4Step, ReductionPolynomial
+from gpuntt.ops.merge_ntt import from_lanes, to_lanes
+from gpuntt.parallel.fourstep_dist import (
     DistFourStepPlan,
     dist_fourstep_intt,
     dist_fourstep_ntt,
 )
-from gpuntt_tpu.parallel.mesh import make_mesh
+from gpuntt.parallel.mesh import make_mesh
 
 
-def _tput(x, mesh, spec):
+def _put_sharded(x, mesh, spec):
     return jax.tree_util.tree_map(
         lambda a: jax.device_put(a, NamedSharding(mesh, spec)), x
     )
@@ -37,7 +37,7 @@ def test_dist_fourstep_matches_golden(dtype, dp, sp, rng):
     x = rng.integers(0, p.modulus.value, size=(batch, p.n), dtype=np.uint64).astype(dtype)
 
     lanes = to_lanes(x.reshape(batch, p.n1, p.n2), dplan.base.is64)
-    lanes = _tput(lanes, mesh, P("dp", None, "sp"))
+    lanes = _put_sharded(lanes, mesh, P("dp", None, "sp"))
     spec_out = jax.jit(lambda v: dist_fourstep_ntt(v, dplan, mesh))(lanes)
 
     got = from_lanes(spec_out, dplan.base.is64).reshape(batch, p.n).astype(dtype)
@@ -61,7 +61,7 @@ def test_dist_intt_matches_reference_intt(rng):
     spec = np.stack([gen.ntt(x[i]) for i in range(2)])
 
     lanes = to_lanes(spec.reshape(2, p.n2, p.n1), False)
-    lanes = _tput(lanes, mesh, P("dp", None, "sp"))
+    lanes = _put_sharded(lanes, mesh, P("dp", None, "sp"))
     back = dist_fourstep_intt(lanes, dplan, mesh)
     got = from_lanes(back, False).reshape(2, p.n).astype(np.uint32)
     np.testing.assert_array_equal(got, x)
@@ -74,45 +74,10 @@ def test_dist_output_sharding(rng):
     dplan = DistFourStepPlan.from_params(p)
     mesh = make_mesh(dp=1, sp=8)
     x = rng.integers(0, p.modulus.value, size=(1, p.n), dtype=np.uint64).astype(np.uint32)
-    lanes = _tput(to_lanes(x.reshape(1, p.n1, p.n2), False), mesh, P("dp", None, "sp"))
+    lanes = _put_sharded(to_lanes(x.reshape(1, p.n1, p.n2), False), mesh, P("dp", None, "sp"))
     out = dist_fourstep_ntt(lanes, dplan, mesh)
     shard_shapes = {s.data.shape for s in out.addressable_shards}
     assert shard_shapes == {(1, p.n2, p.n1 // 8)}
-
-
-def test_dist_local_mxu_routing_bit_exact(rng, monkeypatch):
-    """The MXU local-engine route (rows as digit matmuls inside
-    shard_map) is bit-identical to the XLA stage sweeps, both
-    directions.  The eligibility floor is lowered so a small ring
-    exercises the route (bit-exactness is size-independent; the
-    production-size compiled path is driven on real hardware by the
-    verify recipe); Pallas runs in interpret mode on the CPU mesh."""
-    import gpuntt_tpu.parallel.fourstep_dist as fd
-
-    monkeypatch.setattr(fd, "MXU_LOCAL_MIN_LOGN", 8)
-    p = NTTParameters4Step(13, ReductionPolynomial.X_N_minus, dtype=np.uint64)
-    dplan = DistFourStepPlan.from_params(p)
-    assert dplan.row_mxu is not None          # n2 = 256 >= 2^8
-    assert dplan.col_mxu is None              # n1 = 32 stays on XLA
-    mesh = make_mesh(dp=2, sp=4)
-    batch = 2
-    x = rng.integers(0, p.modulus.value, size=(batch, p.n), dtype=np.uint64)
-
-    lanes = _tput(to_lanes(x.reshape(batch, p.n1, p.n2), True), mesh,
-                  P("dp", None, "sp"))
-    # reference is the NumPy golden model: the XLA-local dist path is
-    # already asserted equal to it by test_dist_fourstep_matches_golden
-    gen = NTT4StepCPU(p)
-    exp = np.stack([gen.ntt(x[i]) for i in range(batch)])
-    got = dist_fourstep_ntt(lanes, dplan, mesh, local_engine="mxu",
-                            interpret=True)
-    np.testing.assert_array_equal(
-        from_lanes(got, True).reshape(batch, p.n), exp)
-
-    back_got = dist_fourstep_intt(got, dplan, mesh, local_engine="mxu",
-                                  interpret=True)
-    got_x = from_lanes(back_got, True).reshape(batch, p.n)
-    np.testing.assert_array_equal(got_x, x)
 
 
 def test_dist_pipeline_chunks_bit_exact(rng):
@@ -127,7 +92,7 @@ def test_dist_pipeline_chunks_bit_exact(rng):
     x = rng.integers(0, p.modulus.value, size=(batch, p.n),
                      dtype=np.uint64)
     lanes = to_lanes(x.reshape(batch, p.n1, p.n2), True)
-    lanes = _tput(lanes, mesh, P("dp", None, "sp"))
+    lanes = _put_sharded(lanes, mesh, P("dp", None, "sp"))
 
     base = jax.jit(lambda v: dist_fourstep_ntt(v, dplan, mesh))(lanes)
     piped = jax.jit(lambda v: dist_fourstep_ntt(
@@ -146,44 +111,47 @@ def test_dist_pipeline_chunks_bit_exact(rng):
     np.testing.assert_array_equal(np.asarray(base.hi), np.asarray(odd.hi))
 
 
-def test_dist_colmat_route(rng):
-    """The fused col-NTT+W column kernel (DistFourStepPlan.colmat, r4):
-    explicitly forced MXU local engine in interpret mode, sp chosen so
-    each shard holds whole W tiles — bit-exact vs the golden forward
-    and exact roundtrip, and identical to the XLA route's output."""
-    from gpuntt_tpu.parallel import fourstep_dist as fd
+def test_dist_polymul_step_takes_plan_as_argument(rng):
+    """DistPolynomialMultiplier.step_lanes runs one jitted program that
+    takes the plan as an ARGUMENT: the (n1, n2) W tables never enter it
+    as constants (they are hundreds of MB at ring 2^24), and the cyclic
+    product matches the 4-step golden model."""
+    from functools import partial
 
-    p = NTTParameters4Step(13, ReductionPolynomial.X_N_minus,
+    from gpuntt.models.polymul import (DistPolynomialMultiplier,
+                                       _dist_polymul_jit)
+
+    p = NTTParameters4Step(12, ReductionPolynomial.X_N_minus,
                            dtype=np.uint64)
-    dplan = DistFourStepPlan.from_params(p)
-    assert dplan.colmat is not None
-    mesh = make_mesh(dp=4, sp=2)  # n2/sp = 128 = one W tile per shard
-    assert fd._colmat_ok(dplan, mesh, "mxu")
+    mesh = make_mesh(dp=2, sp=4)
+    model = DistPolynomialMultiplier(p, mesh)
+    batch = 2
+    q = p.modulus.value
+    a = rng.integers(0, q, size=(batch, p.n), dtype=np.uint64)
+    b = rng.integers(0, q, size=(batch, p.n), dtype=np.uint64)
+    put = lambda v: _put_sharded(to_lanes(v.reshape(batch, p.n1, p.n2), True),
+                          mesh, P("dp", None, "sp"))
+    la, lb = put(a), put(b)
+    jaxpr = jax.make_jaxpr(partial(_dist_polymul_jit, mesh=mesh, chunks=1))(
+        la, lb, model.dplan)
+    assert sum(np.asarray(c).nbytes for c in jaxpr.consts
+               if hasattr(c, "nbytes")) < p.n
+    got = from_lanes(model.step_lanes(la, lb), True).reshape(batch, p.n)
     gen = NTT4StepCPU(p)
-    batch = 4
-    x = rng.integers(0, p.modulus.value, size=(batch, p.n), dtype=np.uint64)
-    lanes = _tput(to_lanes(x.reshape(batch, p.n1, p.n2), True), mesh,
-                  P("dp", None, "sp"))
-    spec = jax.jit(lambda v: dist_fourstep_ntt(
-        v, dplan, mesh, local_engine="mxu", interpret=True))(lanes)
-    got = from_lanes(spec, True).reshape(batch, p.n)
-    exp = np.stack([gen.ntt(x[i]) for i in range(batch)])
-    np.testing.assert_array_equal(got, exp)
-    # identical to the unfused route
-    spec_xla = jax.jit(lambda v: dist_fourstep_ntt(
-        v, dplan, mesh, local_engine="xla"))(lanes)
-    np.testing.assert_array_equal(
-        from_lanes(spec_xla, True), from_lanes(spec, True))
-    back = jax.jit(lambda v: dist_fourstep_intt(
-        v, dplan, mesh, local_engine="mxu", interpret=True))(spec)
-    np.testing.assert_array_equal(
-        from_lanes(back, True).reshape(batch, p.n), x)
-    # indivisible shard width falls back cleanly (n2/sp = 64 < tile)
-    mesh4 = make_mesh(dp=2, sp=4)
-    assert not fd._colmat_ok(dplan, mesh4, "mxu")
-    lanes4 = _tput(to_lanes(x.reshape(batch, p.n1, p.n2), True), mesh4,
-                   P("dp", None, "sp"))
-    spec4 = jax.jit(lambda v: dist_fourstep_ntt(
-        v, dplan, mesh4, local_engine="mxu", interpret=True))(lanes4)
-    np.testing.assert_array_equal(
-        from_lanes(spec4, True).reshape(batch, p.n), exp)
+    for i in range(batch):
+        exp = gen.intt(gen.mult(gen.ntt(a[i]), gen.ntt(b[i])))
+        np.testing.assert_array_equal(got[i], exp)
+
+
+def test_dist_fourstep_rejects_local_engine():
+    """The device-specific local engines are gone; their selector arguments are
+    not accepted any more."""
+    p = NTTParameters4Step(12, ReductionPolynomial.X_N_minus,
+                           dtype=np.uint32)
+    dplan = DistFourStepPlan.from_params(p)
+    mesh = make_mesh(dp=1, sp=8)
+    x = to_lanes(np.zeros((1, p.n1, p.n2), dtype=np.uint32), False)
+    with pytest.raises(TypeError, match="local_engine"):
+        dist_fourstep_ntt(x, dplan, mesh, local_engine="mxu")
+    with pytest.raises(TypeError, match="interpret"):
+        dist_fourstep_intt(x, dplan, mesh, interpret=True)

@@ -11,12 +11,12 @@ import pytest
 
 import jax
 
-from gpuntt_tpu import (
+from gpuntt import (
     NTT4StepCPU,
     NTTParameters4Step,
     ReductionPolynomial,
 )
-from gpuntt_tpu.ops.fourstep import (
+from gpuntt.ops.fourstep import (
     FourStepPlan,
     fourstep_intt_full,
     fourstep_intt_lanes,
@@ -24,7 +24,7 @@ from gpuntt_tpu.ops.fourstep import (
     fourstep_ntt_lanes,
     transpose_lanes,
 )
-from gpuntt_tpu.ops.merge_ntt import from_lanes, to_lanes
+from gpuntt.ops.merge_ntt import from_lanes, to_lanes
 
 
 @pytest.mark.parametrize("dtype", [np.uint32, np.uint64])
@@ -95,7 +95,7 @@ def test_fourstep_roundtrip_u64(rng):
 
 
 def test_custom_dims_factorization(rng):
-    """The `dims` extension (TPU-only, no reference counterpart): an
+    """The `dims` extension (no reference counterpart): an
     explicit n1 x n2 override evaluates the same polynomial at the same
     points (a permuted spectrum — each split is its own output
     convention), inverts exactly, keeps pointwise products
@@ -147,9 +147,26 @@ def test_custom_dims_factorization(rng):
 def test_invalid_dims_rejected():
     import pytest as _pytest
 
-    from gpuntt_tpu.common.errors import NTTError
+    from gpuntt.common.errors import NTTError
 
     for dims in ((48, 128), (64, 64), (1, 8192)):
         with _pytest.raises((NTTError, AssertionError)):
             NTTParameters4Step(13, ReductionPolynomial.X_N_minus,
                                dtype=np.uint64, dims=dims)
+
+
+@pytest.mark.parametrize("logn", range(14, 21))
+def test_fourstep_engine_at_former_kernel_sizes(logn, rng):
+    """The 4-step engine over the range a dedicated u64 device kernel
+    used to own (2^14 and up), through the whole pipeline: forward
+    bit-exact vs NTT_4STEP_CPU (native core) and an exact inverse."""
+    p = NTTParameters4Step(logn, ReductionPolynomial.X_N_minus,
+                           dtype=np.uint64)
+    plan = FourStepPlan.from_params(p)
+    gen = NTT4StepCPU(p)
+    x = rng.integers(0, p.modulus.value, size=(2, p.n), dtype=np.uint64)
+    spec = jax.jit(fourstep_ntt_full)(to_lanes(x, True), plan)
+    got = from_lanes(spec, True)
+    np.testing.assert_array_equal(got, np.stack([gen.ntt(r) for r in x]))
+    back = from_lanes(jax.jit(fourstep_intt_full)(spec, plan), True)
+    np.testing.assert_array_equal(back, x)

@@ -8,12 +8,12 @@ inverse, both dtypes.
 import numpy as np
 import pytest
 
-from gpuntt_tpu import (Modulus32, Modulus64, NTT4StepCPU, NTTFactors,
+from gpuntt import (Modulus32, Modulus64, NTT4StepCPU, NTTFactors,
                         NTTParameters4Step, ReductionPolynomial,
                         RNSFourStepPlan, rns_fourstep_intt_full,
                         rns_fourstep_ntt_full)
-from gpuntt_tpu.arith.host import find_ntt_primes, ntt_root_pair
-from gpuntt_tpu.ops.merge_ntt import from_lanes, to_lanes
+from gpuntt.arith.host import find_ntt_primes, ntt_root_pair
+from gpuntt.ops.merge_ntt import from_lanes, to_lanes
 
 LOGN = 12
 
@@ -66,35 +66,34 @@ def test_rns_fourstep_rejects_mixed_shapes():
 
 
 @pytest.mark.parametrize("logn", [14, 17])
-def test_rns_fourstep_mxu_parity(logn, rng):
-    """The stacked 4-step MXU kernels (scalar-prefetch table gather)
-    are bit-identical to the XLA RNS 4-step engine: logn 14 exercises
-    the right-matmul row branch (n2 = 512), logn 17 the nested-row
-    branch (n2 = 4096 through the stacked in-VMEM RNS kernel)."""
-    from gpuntt_tpu.ops.fourstep_rns import (rns_fourstep_intt_lanes,
-                                             rns_fourstep_ntt_lanes)
-    from gpuntt_tpu.ops.pallas_mxu_rns import (FourStepRNSMXUPlan,
-                                               fourstep_mxu_rns_lanes)
+def test_rns_fourstep_engine_golden_at_former_kernel_sizes(logn, rng):
+    """The stacked-table RNS 4-step engine at the sizes a dedicated
+    kernel used to own: logn 14 (n2 = 512) and 17 (n2 = 4096), mixed
+    moduli in one batch, each row bit-identical to its member's golden
+    model, forward and inverse."""
+    from gpuntt.ops.fourstep_rns import (rns_fourstep_intt_lanes,
+                                         rns_fourstep_ntt_lanes)
+    from gpuntt.reference.fourstep_cpu import intt_input_indices
+
+    import jax
 
     members = [_member(q, logn, np.uint64) for q in find_ntt_primes(59, logn, 2)]
     plan = RNSFourStepPlan.from_params(members)
-    mplan = FourStepRNSMXUPlan.from_members(members)
-    assert (mplan.row_rns is None) == (logn == 14)
-    batch = 3
+    gens = [NTT4StepCPU(p) for p in members]
     mod_idx = np.array([1, 0, 1], dtype=np.int64)
     qs = np.array(plan.qs, dtype=np.uint64)
-    x = np.stack([rng.integers(0, qs[mod_idx[b]], 1 << logn, dtype=np.uint64)
-                  for b in range(batch)])
-    lanes = to_lanes(x, True)
-
-    exp = from_lanes(rns_fourstep_ntt_lanes(lanes, plan, mod_idx), True)
-    got = from_lanes(
-        fourstep_mxu_rns_lanes(lanes, mplan, mod_idx, interpret=True), True)
+    x = np.stack([rng.integers(0, qs[m], 1 << logn, dtype=np.uint64)
+                  for m in mod_idx])
+    n1, n2 = plan.n1, plan.n2
+    # the _lanes entry points take the reference's pre-transposed input
+    xt = x.reshape(-1, n1, n2).transpose(0, 2, 1).reshape(x.shape)
+    got = from_lanes(jax.jit(lambda v, pl: rns_fourstep_ntt_lanes(
+        v, pl, mod_idx))(to_lanes(xt, True), plan), True)
+    got = got.reshape(-1, n1, n2).transpose(0, 2, 1).reshape(x.shape)
+    exp = np.stack([gens[m].ntt(x[b]) for b, m in enumerate(mod_idx)])
     np.testing.assert_array_equal(got, exp)
-
-    exp_i = from_lanes(
-        rns_fourstep_intt_lanes(to_lanes(exp, True), plan, mod_idx), True)
-    got_i = from_lanes(
-        fourstep_mxu_rns_lanes(to_lanes(exp, True), mplan, mod_idx,
-                               inverse=True, interpret=True), True)
-    np.testing.assert_array_equal(got_i, exp_i)
+    perm = exp[:, intt_input_indices(n1, n2)]
+    back = from_lanes(jax.jit(lambda v, pl: rns_fourstep_intt_lanes(
+        v, pl, mod_idx))(to_lanes(perm, True), plan), True)
+    back = back.reshape(-1, n1, n2).transpose(0, 2, 1).reshape(x.shape)
+    np.testing.assert_array_equal(back, x)

@@ -3,23 +3,23 @@
 The reference accepts ANY caller-supplied NTTFactors (nttparameters.cuh:
 38-54); the pool-prime tests exercise only ~60-bit and ~30-bit moduli.
 Here we sample NTT-friendly primes across the supported width range and
-assert golden == XLA engine == MXU digit kernel (interpret mode) for
-each, so width-dependent branches (Barrett schedules, digit counts,
-Horner fast path, lazy bounds) stay honest off the pools.
+assert golden == butterfly engine, forward and inverse, for each, so
+width-dependent branches (Barrett schedules, lazy Shoup bounds) stay
+honest off the pools.
 """
 
 import numpy as np
 import pytest
 
-from gpuntt_tpu.arith.host import is_prime_u64
-from gpuntt_tpu import (
+from gpuntt.arith.host import is_prime_u64
+from gpuntt import (
     Modulus,
     NTTCPU,
     NTTFactors,
     NTTParameters,
     ReductionPolynomial,
 )
-from gpuntt_tpu.ops.merge_ntt import from_lanes, to_lanes
+from gpuntt.ops.merge_ntt import from_lanes, to_lanes
 
 
 def _find_ntt_prime(bits: int, logn: int, seed: int):
@@ -43,8 +43,7 @@ def _find_ntt_prime(bits: int, logn: int, seed: int):
 
 CELLS = [
     # (bits, logn, dtype) — widths between/below the pools, plus the
-    # wide range [2^60, 2^62) where the MXU combine switches to
-    # radix-2^32 groups (pallas_mxu.combine_mode)
+    # wide range [2^60, 2^62) up to the documented Barrett bound
     (34, 8, np.uint64),
     (42, 9, np.uint64),
     (50, 10, np.uint64),
@@ -68,32 +67,17 @@ def test_random_modulus_cross_engine(bits, logn, dtype):
     x = rng.integers(0, q, size=(2, p.n), dtype=np.uint64).astype(dtype)
     exp = np.stack([gen.ntt(x[i]) for i in range(2)])
 
-    # XLA butterfly engine
-    from gpuntt_tpu.ops.merge_ntt import MergePlan, merge_ntt_lanes
+    # butterfly engine, both directions
+    from gpuntt.ops.merge_ntt import MergePlan, merge_intt_lanes, merge_ntt_lanes
     import jax
 
     plan = MergePlan.from_params(p)
     lanes = to_lanes(x, plan.is64)
-    got = from_lanes(jax.jit(lambda v: merge_ntt_lanes(v, plan))(lanes),
-                     plan.is64)
+    got = from_lanes(jax.jit(merge_ntt_lanes)(lanes, plan), plan.is64)
     np.testing.assert_array_equal(got.astype(dtype), exp)
-
-    # digit-matmul kernel (interpret mode)
-    if dtype == np.uint64:
-        from gpuntt_tpu.ops.pallas_mxu import MXUMergePlan, pallas_mxu_u64
-
-        mp = MXUMergePlan.from_params(p)
-        mgot = from_lanes(pallas_mxu_u64(to_lanes(x, True), mp,
-                                         interpret=True), True)
-        np.testing.assert_array_equal(mgot, exp)
-        # inverse closes the loop
-        back = from_lanes(pallas_mxu_u64(to_lanes(exp, True), mp,
-                                         inverse=True, interpret=True),
-                          True)
-        np.testing.assert_array_equal(back, x)
-    else:
-        from gpuntt_tpu.ops.pallas_mxu32 import MXU32Plan, pallas_mxu_u32
-
-        mp = MXU32Plan.from_params(p)
-        mgot = np.asarray(pallas_mxu_u32(x, mp, interpret=True))
-        np.testing.assert_array_equal(mgot, exp)
+    back = from_lanes(jax.jit(merge_intt_lanes)(
+        to_lanes(exp, plan.is64), plan), plan.is64)
+    np.testing.assert_array_equal(back.astype(dtype), x)
+    exp_inv = np.stack([gen.intt(x[i]) for i in range(2)])
+    got_inv = from_lanes(jax.jit(merge_intt_lanes)(lanes, plan), plan.is64)
+    np.testing.assert_array_equal(got_inv.astype(dtype), exp_inv)

@@ -9,7 +9,7 @@ identity — for both dtypes and both reduction polynomials.
 import numpy as np
 import pytest
 
-from gpuntt_tpu import (
+from gpuntt import (
     NTTCPU,
     NTT4StepCPU,
     NTTParameters,
@@ -78,7 +78,7 @@ def test_fourstep_matches_merge_spectrum(rng):
     """4-step and merge NTT over the same (modulus, omega) agree up to
     ordering: both evaluate the polynomial at every N-th root power, so
     the sorted spectra are identical multisets."""
-    from gpuntt_tpu import NTTFactors
+    from gpuntt import NTTFactors
 
     p4 = NTTParameters4Step(12, ReductionPolynomial.X_N_minus,
                             dtype=np.uint32)

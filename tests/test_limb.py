@@ -1,6 +1,6 @@
 """Property tests: uint32-lane wide arithmetic vs exact Python ints.
 
-This is the correctness bedrock of the whole TPU path — every transform
+This is the correctness bedrock of the whole device path — every transform
 reduces to these primitives (SURVEY.md §7 step 1).
 """
 
@@ -9,9 +9,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from gpuntt_tpu.ops import limb
-from gpuntt_tpu.ops import barrett as bo
-from gpuntt_tpu import Modulus32, Modulus64
+from gpuntt.ops import limb
+from gpuntt.ops import barrett as bo
+from gpuntt import Modulus32, Modulus64
 
 RNG = np.random.default_rng(123)
 N = 4096

@@ -1,7 +1,7 @@
 """Distributed merge NTT (collective_permute butterfly exchange) parity.
 
 Coefficient-sharded merge transforms must be bit-identical to the
-single-chip engine on the virtual CPU mesh, for both reduction
+single-device engine on the virtual CPU mesh, for both reduction
 polynomials, both dtypes, forward and inverse — including the batch
 axis riding 'dp'.
 """
@@ -12,11 +12,11 @@ import pytest
 import jax
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from gpuntt_tpu import NTTParameters, ReductionPolynomial
-from gpuntt_tpu.ops.merge_ntt import (MergePlan, from_lanes, merge_intt_lanes,
+from gpuntt import NTTParameters, ReductionPolynomial
+from gpuntt.ops.merge_ntt import (MergePlan, from_lanes, merge_intt_lanes,
                                       merge_ntt_lanes, to_lanes)
-from gpuntt_tpu.parallel.merge_dist import dist_merge_intt, dist_merge_ntt
-from gpuntt_tpu.parallel.mesh import make_mesh
+from gpuntt.parallel.merge_dist import dist_merge_intt, dist_merge_ntt
+from gpuntt.parallel.mesh import make_mesh
 
 
 @pytest.mark.parametrize(
@@ -63,111 +63,39 @@ def test_dist_merge_sp1_degenerate(rng):
     np.testing.assert_array_equal(got, exp)
 
 
-def test_dist_merge_mxu_local_tails_bit_exact(rng, monkeypatch):
-    """MXU local tails (per-shard from_eval plans: Omega = root^sp,
-    Psi_r from the table-subtree identity) are bit-identical to the XLA
-    stage sweeps for both reduction polynomials, both directions.  The
-    eligibility floor is lowered so a small ring exercises all four
-    shard twists quickly (bit-exactness is size-independent; production
-    sizes are driven on real hardware by the verify recipe)."""
-    from gpuntt_tpu.parallel import merge_dist as md
-    from gpuntt_tpu.parallel.merge_dist import _merge_dist_mxu
-
-    monkeypatch.setattr(md, "MXU_LOCAL_MIN_LOGN", 8)
-    for poly in (ReductionPolynomial.X_N_plus, ReductionPolynomial.X_N_minus):
-        p = NTTParameters(11, poly, dtype=np.uint64)
-        plan = MergePlan.from_params(p)
-        mesh = make_mesh(dp=2, sp=4)
-        assert _merge_dist_mxu(plan, 4) is not None   # local 2^9 eligible
-        batch = 4
-        x = rng.integers(0, p.modulus.value, size=(batch, p.n),
-                         dtype=np.uint64)
-        sh = NamedSharding(mesh, P(None, "sp"))
-        lanes = jax.tree_util.tree_map(
-            lambda a: jax.device_put(a, sh), to_lanes(x, True))
-        # reference is the single-chip engine: the XLA-local dist path is
-        # already asserted equal to it by test_dist_merge_parity (and its
-        # compile at any size is minutes on CPU, so avoid it here)
-        exp = from_lanes(merge_ntt_lanes(to_lanes(x, True), plan), True)
-        got = dist_merge_ntt(lanes, plan, mesh, local_engine="mxu",
-                             interpret=True)
-        np.testing.assert_array_equal(from_lanes(got, True), exp)
-
-        back_got = dist_merge_intt(got, plan, mesh, local_engine="mxu",
-                                   interpret=True)
-        np.testing.assert_array_equal(from_lanes(back_got, True), x)
-
-
-def test_dist_merge_mxu_large_local_tails_bit_exact(rng, monkeypatch):
-    """LARGE-engine local tails (MXULargePlan.from_eval per shard — the
-    production regime for ring >= 2^20 at sp=8, where the tail exceeds
-    the in-VMEM kernel) are bit-exact both directions, with the stacked
-    tails passed through a user jit as a pytree ARGUMENT (the runtime-
-    buffer path the north-star dryrun and chip cells use).  The large
-    floor is lowered so a small ring exercises all four shard twists."""
-    from gpuntt_tpu.parallel import merge_dist as md
-    from gpuntt_tpu.parallel.merge_dist import (MergeDistMXULarge,
-                                                merge_dist_mxu)
-
-    monkeypatch.setattr(md, "MXU_LOCAL_LARGE_MIN_LOGN", 12)
-    for poly in (ReductionPolynomial.X_N_plus, ReductionPolynomial.X_N_minus):
-        p = NTTParameters(14, poly, dtype=np.uint64)
-        plan = MergePlan.from_params(p)
-        mesh = make_mesh(dp=1, sp=4)
-        mxu = merge_dist_mxu(plan, 4)
-        assert isinstance(mxu, MergeDistMXULarge)  # local 2^12 -> large
-        batch = 2
-        x = rng.integers(0, p.modulus.value, size=(batch, p.n),
-                         dtype=np.uint64)
-        sh = NamedSharding(mesh, P(None, "sp"))
-        lanes = jax.tree_util.tree_map(
-            lambda a: jax.device_put(a, sh), to_lanes(x, True))
-        exp = from_lanes(merge_ntt_lanes(to_lanes(x, True), plan), True)
-        fwd = jax.jit(lambda v, pl, mx: dist_merge_ntt(
-            v, pl, mesh, interpret=True, mxu=mx))
-        got = fwd(lanes, plan, mxu)
-        np.testing.assert_array_equal(from_lanes(got, True), exp)
-        inv = jax.jit(lambda v, pl, mx: dist_merge_intt(
-            v, pl, mesh, interpret=True, mxu=mx))
-        back = inv(got, plan, mxu)
-        np.testing.assert_array_equal(from_lanes(back, True), x)
-
-
-def test_dist_merge_tableless_plan_uses_cross_tables(rng, monkeypatch):
-    """A TPU-built table-skipped plan through the dist merge with MXU
-    tails must NOT rebuild the full 2^n butterfly tables (the r5 review
-    finding: with_tables() inside the caller's jit inlines 10s of MB);
-    the cross-chip stages only index < sp, so an sp-entry table
-    suffices — asserted bit-exact and small."""
-    import jax as _jax
-
-    from gpuntt_tpu.parallel import merge_dist as md
-    from gpuntt_tpu.parallel.merge_dist import merge_dist_mxu
-
-    monkeypatch.setattr(md, "MXU_LOCAL_MIN_LOGN", 8)
-    monkeypatch.setattr(_jax, "default_backend", lambda: "tpu")
-    p = NTTParameters(12, ReductionPolynomial.X_N_plus, dtype=np.uint64)
-    # force the TPU table-skip decision despite the small ring
-    from gpuntt_tpu.ops import merge_ntt as mn
-
-    monkeypatch.setattr(mn, "_bigring_engine_path", lambda _p: "mxu-large")
+@pytest.mark.parametrize("dp,sp", [(1, 8), (2, 4), (4, 2)])
+def test_dist_merge_plan_as_jit_argument(dp, sp, rng):
+    """The plan rides through the caller's jit as an ARGUMENT (its
+    tables become runtime buffers, not HLO constants) on every mesh
+    shape, and the result stays bit-identical to the single-device
+    engine — 1, 2 and 3 cross-device butterfly stages."""
+    p = NTTParameters(11, ReductionPolynomial.X_N_plus, dtype=np.uint64)
     plan = MergePlan.from_params(p)
-    assert plan.fwd_table is None
-    small = md._cross_only_plan(plan, 4)
-    leaf = jax.tree_util.tree_leaves(small.fwd_table)[0]
-    assert leaf.shape[0] == 4  # sp entries, not 2^12
-    mesh = make_mesh(dp=1, sp=4)
-    mxu = merge_dist_mxu(plan, 4)
-    assert mxu is not None
-    x = rng.integers(0, p.modulus.value, size=(2, p.n), dtype=np.uint64)
-    sh = NamedSharding(mesh, P(None, "sp"))
+    mesh = make_mesh(dp=dp, sp=sp)
+    x = rng.integers(0, p.modulus.value, size=(2 * dp, p.n), dtype=np.uint64)
+    sh = NamedSharding(mesh, P("dp", "sp"))
     lanes = jax.tree_util.tree_map(
         lambda a: jax.device_put(a, sh), to_lanes(x, True))
-    got = jax.jit(lambda v, pl, mx: dist_merge_ntt(
-        v, pl, mesh, interpret=True, mxu=mx))(lanes, plan, mxu)
-    exp = from_lanes(merge_ntt_lanes(to_lanes(x, True),
-                                     plan.with_tables()), True)
+    fwd = jax.jit(lambda v, pl: dist_merge_ntt(v, pl, mesh))
+    jaxpr = jax.make_jaxpr(lambda v, pl: dist_merge_ntt(v, pl, mesh))(
+        lanes, plan)
+    assert sum(np.asarray(c).nbytes for c in jaxpr.consts
+               if hasattr(c, "nbytes")) < (1 << 12)
+    got = fwd(lanes, plan)
+    exp = from_lanes(jax.jit(merge_ntt_lanes)(to_lanes(x, True), plan), True)
     np.testing.assert_array_equal(from_lanes(got, True), exp)
-    back = jax.jit(lambda v, pl, mx: dist_merge_intt(
-        v, pl, mesh, interpret=True, mxu=mx))(got, plan, mxu)
+    back = jax.jit(lambda v, pl: dist_merge_intt(v, pl, mesh))(got, plan)
     np.testing.assert_array_equal(from_lanes(back, True), x)
+
+
+def test_dist_merge_rejects_local_engine():
+    """The device-specific local-tail engines are gone: the old selector
+    arguments are not accepted any more."""
+    p = NTTParameters(9, ReductionPolynomial.X_N_plus, dtype=np.uint64)
+    plan = MergePlan.from_params(p)
+    mesh = make_mesh(dp=1, sp=4)
+    x = to_lanes(np.zeros((1, p.n), dtype=np.uint64), True)
+    with pytest.raises(TypeError, match="local_engine"):
+        dist_merge_ntt(x, plan, mesh, local_engine="mxu")
+    with pytest.raises(TypeError, match="interpret"):
+        dist_merge_intt(x, plan, mesh, interpret=True)

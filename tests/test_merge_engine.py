@@ -10,8 +10,8 @@ import pytest
 
 import jax
 
-from gpuntt_tpu import NTTCPU, NTTParameters, ReductionPolynomial
-from gpuntt_tpu.ops.merge_ntt import (
+from gpuntt import NTTCPU, NTTParameters, ReductionPolynomial
+from gpuntt.ops.merge_ntt import (
     MergePlan,
     from_lanes,
     merge_intt_lanes,

@@ -8,11 +8,11 @@ it replaces, so the golden oracle stays trustworthy.
 import numpy as np
 import pytest
 
-from gpuntt_tpu import NTTParameters, NTTParameters4Step, ReductionPolynomial
-from gpuntt_tpu import _native
-from gpuntt_tpu.params.bitrev import bitreverse
-from gpuntt_tpu.reference import vecmod as vm
-from gpuntt_tpu.reference.fourstep_cpu import NTT4StepCPU, intt_input_indices
+from gpuntt import NTTParameters, NTTParameters4Step, ReductionPolynomial
+from gpuntt import _native
+from gpuntt.params.bitrev import bitreverse
+from gpuntt.reference import vecmod as vm
+from gpuntt.reference.fourstep_cpu import NTT4StepCPU, intt_input_indices
 
 pytestmark = pytest.mark.skipif(not _native.available(), reason="no native toolchain")
 

@@ -3,14 +3,14 @@
 import numpy as np
 import pytest
 
-from gpuntt_tpu import (
+from gpuntt import (
     NTTParameters,
     NTTParameters4Step,
     ReductionPolynomial,
     bitreverse,
     bitrev_permute,
 )
-from gpuntt_tpu.arith import host
+from gpuntt.arith import host
 
 
 def test_bitreverse():
@@ -90,7 +90,7 @@ def test_fourstep_params(dtype):
 
 
 def test_fourstep_logn_range():
-    from gpuntt_tpu import NTTParameterError
+    from gpuntt import NTTParameterError
 
     with pytest.raises(NTTParameterError):
         NTTParameters4Step(11)

@@ -11,18 +11,18 @@ import pytest
 import jax
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from gpuntt_tpu import (Modulus64, NTT4StepCPU, NTTFactors,
+from gpuntt import (Modulus64, NTT4StepCPU, NTTFactors,
                         NTTParameters4Step, ReductionPolynomial)
-from gpuntt_tpu.arith.host import ntt_root_pair
-from gpuntt_tpu.models.polymul import DistRNSPolynomialMultiplier
-from gpuntt_tpu.ops.merge_ntt import from_lanes, to_lanes
-from gpuntt_tpu.parallel.fourstep_rns_dist import (
+from gpuntt.arith.host import ntt_root_pair
+from gpuntt.models.polymul import DistRNSPolynomialMultiplier
+from gpuntt.ops.merge_ntt import from_lanes, to_lanes
+from gpuntt.parallel.fourstep_rns_dist import (
     DistRNSFourStepPlan,
     dist_rns_fourstep_intt,
     dist_rns_fourstep_ntt,
 )
-from gpuntt_tpu.parallel.mesh import make_mesh
-from gpuntt_tpu.reference.schoolbook import schoolbook_poly_multiplication
+from gpuntt.parallel.mesh import make_mesh
+from gpuntt.reference.schoolbook import schoolbook_poly_multiplication
 
 LOGN = 12
 _QS = (576460752303415297, 576460752303439873, 576460752304439297)
@@ -35,7 +35,7 @@ def _member(q, logn, poly=ReductionPolynomial.X_N_minus):
         factors=NTTFactors(Modulus64(q), om, psi))
 
 
-def _tput(x, mesh, spec):
+def _put_sharded(x, mesh, spec):
     return jax.tree_util.tree_map(
         lambda a: jax.device_put(a, NamedSharding(mesh, spec)), x)
 
@@ -52,7 +52,7 @@ def test_dist_rns_fourstep_matches_golden(dp, sp, rng):
     x = np.stack([rng.integers(0, members[m].modulus.value, p0.n,
                                dtype=np.uint64) for m in mod_idx])
 
-    lanes = _tput(to_lanes(x.reshape(batch, p0.n1, p0.n2), True),
+    lanes = _put_sharded(to_lanes(x.reshape(batch, p0.n1, p0.n2), True),
                   mesh, P("dp", None, "sp"))
     spec = jax.jit(
         lambda v: dist_rns_fourstep_ntt(v, dplan, mesh, mod_idx))(lanes)
@@ -80,9 +80,9 @@ def test_dist_rns_polymul_model(rng):
     b = np.stack([rng.integers(0, members[m].modulus.value, p0.n,
                                dtype=np.uint64) for m in mod_idx])
 
-    la = _tput(to_lanes(a.reshape(batch, p0.n1, p0.n2), True), mesh,
+    la = _put_sharded(to_lanes(a.reshape(batch, p0.n1, p0.n2), True), mesh,
                P("dp", None, "sp"))
-    lb = _tput(to_lanes(b.reshape(batch, p0.n1, p0.n2), True), mesh,
+    lb = _put_sharded(to_lanes(b.reshape(batch, p0.n1, p0.n2), True), mesh,
                P("dp", None, "sp"))
     out = jax.jit(lambda u, v: model.step_lanes(u, v, mod_idx))(la, lb)
     got = from_lanes(out, True).reshape(batch, p0.n)
@@ -92,40 +92,18 @@ def test_dist_rns_polymul_model(rng):
         np.testing.assert_array_equal(got[r], exp)
 
 
-def test_dist_rns_local_mxu_routing_bit_exact(rng, monkeypatch):
-    """The stacked MXU local engine (scalar-prefetch RNS kernels inside
-    shard_map, mixed-modulus rows in ONE kernel) is bit-identical to
-    the XLA stage sweeps.  Floor lowered so a small ring exercises the
-    route; Pallas interpret mode on the CPU mesh."""
-    import gpuntt_tpu.parallel.fourstep_dist as fd
-
-    from gpuntt_tpu.arith.host import find_ntt_primes
-
-    monkeypatch.setattr(fd, "MXU_LOCAL_MIN_LOGN", 8)
-    members = [_member(q, 13) for q in find_ntt_primes(59, 13, 2)]
-    p0 = members[0]
+def test_dist_rns_rejects_local_engine():
+    """The stacked device-specific local engines are gone; their selector
+    arguments are not accepted any more."""
+    members = [_member(q, LOGN) for q in _QS[:2]]
     dplan = DistRNSFourStepPlan.from_members(members)
-    assert dplan.row_rns is not None          # n2 = 256 >= 2^8
-    assert dplan.col_rns is None              # n1 = 32 stays on XLA
-    mesh = make_mesh(dp=2, sp=4)
-    batch = 2
-    mod_idx = np.arange(batch) % len(members)
-    x = np.stack([rng.integers(0, members[m].modulus.value, p0.n,
-                               dtype=np.uint64) for m in mod_idx])
-    gens = [NTT4StepCPU(p) for p in members]
-
-    lanes = _tput(to_lanes(x.reshape(batch, p0.n1, p0.n2), True), mesh,
-                  P("dp", None, "sp"))
-    exp = np.stack([gens[m].ntt(x[b]) for b, m in enumerate(mod_idx)])
-    got = dist_rns_fourstep_ntt(lanes, dplan, mesh, mod_idx,
-                                local_engine="mxu", interpret=True)
-    np.testing.assert_array_equal(
-        from_lanes(got, True).reshape(batch, p0.n), exp)
-
-    back = dist_rns_fourstep_intt(got, dplan, mesh, mod_idx,
-                                  local_engine="mxu", interpret=True)
-    np.testing.assert_array_equal(
-        from_lanes(back, True).reshape(batch, p0.n), x)
+    mesh = make_mesh(dp=1, sp=8)
+    p0 = members[0]
+    x = to_lanes(np.zeros((2, p0.n1, p0.n2), dtype=np.uint64), True)
+    with pytest.raises(TypeError, match="local_engine"):
+        dist_rns_fourstep_ntt(x, dplan, mesh, [0, 1], local_engine="mxu")
+    with pytest.raises(TypeError, match="interpret"):
+        dist_rns_fourstep_intt(x, dplan, mesh, [0, 1], interpret=True)
 
 
 def test_dist_rns_rejects_xnp_members():

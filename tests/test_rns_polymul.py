@@ -15,7 +15,7 @@ pin the framework's additions:
 import numpy as np
 import pytest
 
-from gpuntt_tpu import (
+from gpuntt import (
     NTTCPU,
     NTTParameters,
     ReductionPolynomial,
@@ -24,15 +24,15 @@ from gpuntt_tpu import (
     rns_pointwise_mult,
     rns_polymul,
 )
-from gpuntt_tpu.arith.host import find_ntt_primes, ntt_root_pair
-from gpuntt_tpu.models.polymul import RNSPolynomialMultiplier
-from gpuntt_tpu.reference.schoolbook import schoolbook_poly_multiplication
+from gpuntt.arith.host import find_ntt_primes, ntt_root_pair
+from gpuntt.models.polymul import RNSPolynomialMultiplier
+from gpuntt.reference.schoolbook import schoolbook_poly_multiplication
 
 
 def _members(logn, count, dtype, poly=ReductionPolynomial.X_N_minus):
     """Distinct pool-style members: the default pool prime plus
     NTT-friendly neighbours q = k * 2^(logn+1) + 1."""
-    from gpuntt_tpu import Modulus32, Modulus64, NTTFactors
+    from gpuntt import Modulus32, Modulus64, NTTFactors
 
     bits = 59 if np.dtype(dtype) == np.uint64 else 29
     mk = Modulus64 if np.dtype(dtype) == np.uint64 else Modulus32
@@ -87,8 +87,8 @@ def test_rns_polymul_ordered_schedule(rng):
 def test_rns_pointwise_lanes_matches_host(rng):
     import jax
 
-    from gpuntt_tpu.ops.dispatch import rns_pointwise_mult_lanes
-    from gpuntt_tpu.ops.merge_ntt import from_lanes, to_lanes
+    from gpuntt.ops.dispatch import rns_pointwise_mult_lanes
+    from gpuntt.ops.merge_ntt import from_lanes, to_lanes
 
     logn, mc, batch = 8, 3, 6
     members = _members(logn, mc, np.uint64)

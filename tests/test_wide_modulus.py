@@ -1,14 +1,11 @@
 """Wide-modulus coverage: q in [2^60, 2^62) for u64, 30-bit for u32.
 
 The reference documents Barrett validity for moduli up to 62 bits
-(u64) / 30 bits (u32) (modular_arith.cuh:66-67).  Since round 2 the
-MXU digit-matmul paths cover that full domain: moduli in [2^60, 2^62)
-switch the diagonal combine to four-diagonal radix-2^32 groups with a
-trimmed last Horner step (pallas_mxu.combine_mode), so they stay on
-the fast path AND bit-exact — asserted here against the golden models
-(the native oracle's __int128 mulmod is exact for q < 2^63).  Moduli
-at or past 2^62 are outside every engine's documented domain and must
-decline off the MXU plans.
+(u64) / 30 bits (u32) (modular_arith.cuh:66-67).  The butterfly
+engines cover that full domain (lazy Shoup bound 3q < 2^64), asserted
+here against the golden models (the native oracle's __int128 mulmod is
+exact for q < 2^63) through the engine, the public numpy API, the
+4-step engine and the polynomial product.
 
 Primes found by Miller-Rabin search with q ≡ 1 (mod 2N) and psi of
 exact order 2N; omega = psi^2.
@@ -19,23 +16,17 @@ import pytest
 
 import jax
 
-from gpuntt_tpu import (NTTCPU, NTTFactors, NTTParameters,
+from gpuntt import (NTTCPU, NTTFactors, NTTParameters,
                         NTTParameters4Step, ReductionPolynomial)
-from gpuntt_tpu.arith.modulus import Modulus32, Modulus64
-from gpuntt_tpu.ops import dispatch
-from gpuntt_tpu.ops.merge_ntt import (MergePlan, from_lanes, merge_intt_lanes,
+from gpuntt.arith.modulus import Modulus32, Modulus64
+from gpuntt.ops.merge_ntt import (MergePlan, from_lanes, merge_intt_lanes,
                                       merge_ntt_lanes, to_lanes)
-from gpuntt_tpu.params.merge import NTTLayout
 
 # (q, psi) with psi of order 2^13 (logn 12)
 WIDE61 = (1152921504606904321, 372252312640463555)
 WIDE62 = (4611684918915809281, 4166544109213919754)  # q = 2^62 - 1.1e9
-# psi of order 2^14 (logn 13) for the large-engine composition
+# psi of order 2^14 (logn 13)
 WIDE62_L13 = (2305843009214414849, 2225036270695883949)
-# past the documented 62-bit bound: every MXU plan must decline
-OVER62 = (4611686018427494401, 795177494079348431)
-# psi of order 2^25 (logn 24) for the staged-route gate
-WIDE61_L24 = (1152921504942391297, 723091248622492857)
 # 30-bit u32 prime, psi of order 2^13
 U32_30BIT = (1072766977, 685863465)
 
@@ -49,148 +40,62 @@ def _params(logn, q, psi, poly, dtype=np.uint64):
         factors=NTTFactors(mod, psi * psi % q, psi))
 
 
-# ------------------------------------------------- gates: accept / decline
-
-
-def test_mxu_plans_decline_past_62_bits():
-    from gpuntt_tpu.ops.pallas_mxu import MXUMergePlan
-    from gpuntt_tpu.ops.pallas_mxu_large import MXULargePlan
-
-    q, psi = OVER62
-    p = _params(12, q, psi, ReductionPolynomial.X_N_plus)
-    with pytest.raises(ValueError, match="2\\^62"):
-        MXUMergePlan.from_params(p)
-    with pytest.raises(ValueError, match="2\\^62"):
-        MXULargePlan.from_params(p)
-
-
-def test_stacked_rns_builders_decline_wide_members():
-    """The stacked RNS kernels hard-code the narrow 5-diagonal combine,
-    so their builders must REJECT wide members even when dispatch gates
-    are bypassed (direct from_members callers) — a wide ladder would
-    otherwise compute silently wrong spectra."""
-    from gpuntt_tpu.ops.pallas_mxu_rns import MXURNSPlan
-
-    q, psi = WIDE61
-    members = [
-        _params(12, q, psi, ReductionPolynomial.X_N_minus),
-        _params(12, q, psi, ReductionPolynomial.X_N_minus),
-    ]
-    with pytest.raises(ValueError, match="modulus < 2\\^60"):
-        MXURNSPlan.from_members(members)
-
-
-@pytest.mark.parametrize("q,psi", [WIDE61, WIDE62])
-def test_dispatch_routes_wide_modulus_to_mxu(q, psi, monkeypatch):
-    monkeypatch.setattr(dispatch.jax, "default_backend", lambda: "tpu")
-    p = _params(12, q, psi, ReductionPolynomial.X_N_plus)
-    plan = MergePlan.from_params(p)
-    assert dispatch._kernel_path(plan, (4, p.n),
-                                 NTTLayout.PerPolynomial) == "mxu"
-
-
-def test_dispatch_declines_past_62_bits(monkeypatch):
-    monkeypatch.setattr(dispatch.jax, "default_backend", lambda: "tpu")
-    q, psi = OVER62
-    p = _params(12, q, psi, ReductionPolynomial.X_N_plus)
-    plan = MergePlan.from_params(p)
-    assert dispatch._kernel_path(plan, (4, p.n),
-                                 NTTLayout.PerPolynomial) is None
-
-
-def test_staged_route_declines_past_62_bits(monkeypatch):
-    monkeypatch.setattr(dispatch.jax, "default_backend", lambda: "tpu")
-    q, psi = OVER62
-    # order of psi is 2^13, far short of 2^25 — but the q gate fires
-    # first, which is what this asserts (no plan is ever built)
-    p = _params(24, q, psi, ReductionPolynomial.X_N_plus)
-    plan = MergePlan.from_params(p)
-    lanes = to_lanes(np.zeros((1, p.n), dtype=np.uint64), True)
-    assert dispatch._staged_route(lanes, plan, NTTLayout.PerPolynomial,
-                                  inverse=False) is None
-
-
-def test_staged_route_plan_builds_wide_modulus():
-    """logn 24 at a 61-bit modulus now plans onto the staged MXU route
-    (plan construction only — the compiled run needs the chip)."""
-    from gpuntt_tpu.ops.pallas_mxu_large import MXULargePlan
-
-    q, psi = WIDE61_L24
-    p = _params(24, q, psi, ReductionPolynomial.X_N_plus)
-    plan = MXULargePlan.from_params(p)
-    assert plan.q == q and plan.logn == 24
-
-
-# -------------------------------------------- MXU engines: wide bit-exact
-
-
-@pytest.mark.parametrize("q,psi", [WIDE61, WIDE62])
-@pytest.mark.parametrize("poly", POLYS)
-def test_mxu_exact_wide_modulus(q, psi, poly, rng):
-    """In-VMEM MXU kernel at the wide combine (radix-2^32 groups,
-    trimmed Horner) vs the golden model."""
-    from gpuntt_tpu.ops.pallas_mxu import MXUMergePlan, pallas_mxu_u64
-
-    p = _params(12, q, psi, poly)
-    plan = MXUMergePlan.from_params(p)
-    gen = NTTCPU(p)
-    x = rng.integers(0, q, size=(2, p.n), dtype=np.uint64)
-    got = from_lanes(
-        pallas_mxu_u64(to_lanes(x, True), plan, interpret=True), True)
-    exp = np.stack([gen.ntt(x[i]) for i in range(2)])
-    np.testing.assert_array_equal(got, exp)
-    back = from_lanes(
-        pallas_mxu_u64(to_lanes(exp, True), plan, inverse=True,
-                       interpret=True), True)
-    np.testing.assert_array_equal(back, x)
+# ------------------------------------------- public API and 4-step: wide
 
 
 @pytest.mark.parametrize("poly", POLYS)
-def test_mxu_large_exact_wide_modulus(poly, rng):
-    """Large-ring composition (column kernel + in-VMEM rows) at a
-    near-2^62 modulus, shrunken a_col as in test_mxu_large."""
-    from gpuntt_tpu.ops.pallas_mxu_large import (MXULargePlan,
-                                                 pallas_mxu_large_u64)
+def test_public_api_exact_wide_modulus_logn13(poly, rng):
+    """ntt / intt over numpy at a near-2^62 modulus and logn 13, forward
+    against the golden model and an exact round trip."""
+    from gpuntt import intt, ntt
 
     q, psi = WIDE62_L13
     p = _params(13, q, psi, poly)
-    plan = MXULargePlan.from_params(p, a_col=4)
+    plan = MergePlan.from_params(p)
     gen = NTTCPU(p)
     x = rng.integers(0, q, size=(2, p.n), dtype=np.uint64)
-    got = from_lanes(
-        pallas_mxu_large_u64(to_lanes(x, True), plan, interpret=True), True)
-    exp = np.stack([gen.ntt(x[i]) for i in range(2)])
-    np.testing.assert_array_equal(got, exp)
-    back = from_lanes(
-        pallas_mxu_large_u64(to_lanes(exp, True), plan, inverse=True,
-                             interpret=True), True)
-    np.testing.assert_array_equal(back, x)
+    got = ntt(x, plan)
+    np.testing.assert_array_equal(got, np.stack([gen.ntt(r) for r in x]))
+    np.testing.assert_array_equal(intt(got, plan), x)
 
 
-def test_mxu_4step_exact_wide_modulus(rng):
-    """4-step MXU engine at a near-2^62 modulus vs the XLA 4-step."""
-    from gpuntt_tpu.ops.fourstep import (FourStepPlan, fourstep_intt_lanes,
-                                         fourstep_ntt_lanes)
-    from gpuntt_tpu.ops.pallas_mxu_4step import (FourStepMXUPlan,
-                                                 fourstep_mxu_lanes)
+def test_fourstep_engine_exact_wide_modulus(rng):
+    """4-step engine at a near-2^62 modulus vs the 4-step golden model,
+    forward and inverse."""
+    from gpuntt import NTT4StepCPU
+    from gpuntt.ops.fourstep import (FourStepPlan, fourstep_intt_full,
+                                     fourstep_ntt_full)
 
     q, psi = WIDE62
     p = NTTParameters4Step(
         12, ReductionPolynomial.X_N_minus, dtype=np.uint64,
         factors=NTTFactors(Modulus64(q), psi * psi % q, psi))
-    eplan = FourStepPlan.from_params(p)
-    mplan = FourStepMXUPlan.from_params(p)
+    plan = FourStepPlan.from_params(p)
+    gen = NTT4StepCPU(p)
     x = rng.integers(0, q, size=(2, p.n), dtype=np.uint64)
-    lanes = to_lanes(x, True)
-    exp_f = from_lanes(
-        jax.jit(lambda v: fourstep_ntt_lanes(v, eplan))(lanes), True)
-    got_f = from_lanes(fourstep_mxu_lanes(lanes, mplan, interpret=True), True)
-    np.testing.assert_array_equal(got_f, exp_f)
-    exp_i = from_lanes(
-        jax.jit(lambda v: fourstep_intt_lanes(v, eplan))(lanes), True)
-    got_i = from_lanes(fourstep_mxu_lanes(lanes, mplan, inverse=True,
-                                          interpret=True), True)
-    np.testing.assert_array_equal(got_i, exp_i)
+    got = from_lanes(jax.jit(fourstep_ntt_full)(to_lanes(x, True), plan), True)
+    np.testing.assert_array_equal(got, np.stack([gen.ntt(r) for r in x]))
+    back = from_lanes(jax.jit(fourstep_intt_full)(to_lanes(got, True), plan),
+                      True)
+    np.testing.assert_array_equal(back, x)
+
+
+@pytest.mark.parametrize("q,psi", [WIDE61, WIDE62])
+def test_polymul_exact_wide_modulus(q, psi, rng):
+    """Negacyclic product at a wide modulus equals the schoolbook
+    product (the pointwise Barrett runs at the full 62-bit width)."""
+    from gpuntt import polymul, schoolbook_poly_multiplication
+
+    # psi has order 2^13; its 16th power has the order 2^9 that logn 8 needs
+    p = _params(8, q, pow(psi, 16, q), ReductionPolynomial.X_N_plus)
+    plan = MergePlan.from_params(p)
+    a = rng.integers(0, q, size=(2, p.n), dtype=np.uint64)
+    b = rng.integers(0, q, size=(2, p.n), dtype=np.uint64)
+    got = polymul(a, b, plan)
+    for i in range(2):
+        exp = schoolbook_poly_multiplication(a[i], b[i], p.modulus,
+                                             ReductionPolynomial.X_N_plus)
+        np.testing.assert_array_equal(got[i], exp)
 
 
 def test_signed_variants_wide_modulus(rng):
@@ -198,7 +103,7 @@ def test_signed_variants_wide_modulus(rng):
     sign-fix add (q + x) and the centered subtract both stay inside
     u64 for q < 2^63, asserted against the golden on sign-fixed data
     (reference Data64s semantics, test_merge_ntt.cu:184-341)."""
-    from gpuntt_tpu import intt, ntt
+    from gpuntt import intt, ntt
 
     q, psi = WIDE62
     p = _params(10, q, psi, ReductionPolynomial.X_N_minus)
@@ -222,7 +127,7 @@ def test_signed_variants_wide_modulus(rng):
     np.testing.assert_array_equal(back.astype(object), exp_c)
 
 
-# --------------------------------------- butterfly engines: wide bit-exact
+# ----------------------------------------- butterfly engine: wide bit-exact
 
 
 @pytest.mark.parametrize("q,psi", [WIDE61, WIDE62])
